@@ -1,11 +1,9 @@
 """Production rebuild-cadence probe: tree_steps x tree_resort_every x
 tree_pipeline at the tuned headline config.
 
-The round-4 bottleneck moved from the force program to the rebuild
-pipeline: with a FULL re-sort submitted every boundary (K=1) the
-background job (12 MB tunnel fetch + host kd + traversal) exceeds the
-8-step scan window and the device stalls ~3 s per boundary
-(bench BENCH_r04 window logs).  Knobs already in the engine:
+With a FULL re-sort submitted every boundary (K=1) the background job
+(position fetch + host kd + traversal) can exceed the scan window, and
+the device then stalls at the boundary.  Knobs already in the engine:
 
   * tree_steps (ts): window length — longer windows hide more rebuild,
     cost window-end staleness error,
@@ -17,7 +15,7 @@ background job (12 MB tunnel fetch + host kd + traversal) exceeds the
 
 For each combo: median s/step over `windows` timed windows, plus the force
 error at the END of the last window (maximally stale tree) against a fresh
-2048-target Kahan oracle.
+2048-target Kahan oracle.  Rows go to out/cadence.json (gitignored).
 
 Usage: python scripts/cadence_probe.py [n] [p] [r] [boost]
        (combos hard-coded below; edit COMBOS to taste)
@@ -31,7 +29,7 @@ import time
 
 sys.path.insert(0, ".")
 
-from coulomb_oscillators_tpu.utils.cache import enable_compile_cache
+from coulomb_oscillators.utils.cache import enable_compile_cache
 enable_compile_cache()
 
 COMBOS = [
@@ -39,10 +37,10 @@ COMBOS = [
     # builder: "host" = native kd quickselect (build_host_padded),
     #          "kd_device" = exact equal-count kd on device (2-key
     #          lax.sort/level, _build_device) + host traversal on fetched
-    #          bounds — VERDICT r4 item 5,
+    #          bounds,
     #          "morton" = device Morton (loose leaves on beams)
-    (16, 2, 2, 1, "host"),    # round-4 ship + in-scan geometry refresh
-    (16, 2, 2, 0, "host"),    # round-4 ship exactly
+    (16, 2, 2, 1, "host"),    # shipped cadence + in-scan geometry refresh
+    (16, 2, 2, 0, "host"),    # shipped cadence, no geometry refresh
     (16, 1, 2, 1, "kd_device"),
     (8, 1, 2, 1, "kd_device"),
     (8, 1, 1, 1, "kd_device"),
@@ -61,7 +59,7 @@ COMBOS = [c if len(c) == 5 else (*c, 1, "host") for c in COMBOS]
 def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 1_000_000
     p = int(sys.argv[2]) if len(sys.argv) > 2 else 6
-    r = float(sys.argv[3]) if len(sys.argv) > 3 else 1.67
+    r = float(sys.argv[3]) if len(sys.argv) > 3 else 1.43
     boost = float(sys.argv[4]) if len(sys.argv) > 4 else 1.5
     os.environ["CO_SUB_BOOST"] = str(boost)
 
@@ -69,11 +67,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from coulomb_oscillators_tpu import SimConfig, ParticleState
-    from coulomb_oscillators_tpu.models import init_dist as ID
-    from coulomb_oscillators_tpu.ops import direct as D
-    from coulomb_oscillators_tpu.ops.reductions import mean_rel_err
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators import SimConfig, ParticleState
+    from coulomb_oscillators.models import init_dist as ID
+    from coulomb_oscillators.ops import direct as D
+    from coulomb_oscillators.ops.reductions import mean_rel_err
+    from coulomb_oscillators.simulate import Simulator
 
     cfg0 = SimConfig()
     x = (0.003, 0.001, 0.01)
@@ -104,8 +102,7 @@ def main():
         times = []
         for w in range(5):
             t0 = time.perf_counter()
-            h = sim.advance_padded(2 * ts)
-            np.asarray(h[0, 0])
+            jax.block_until_ready(sim.advance_padded(2 * ts))
             times.append((time.perf_counter() - t0) / (2 * ts))
             print(f"  ts={ts} K={K} D={Dp} window {w}: {times[-1]:.4f} "
                   f"s/step rebuild_wait="
@@ -128,12 +125,13 @@ def main():
                "stale_err": err, "times": [round(t, 4) for t in times]}
         rows.append(row)
         print("@@ " + json.dumps(row), flush=True)
-        with open("docs/cadence_r05.json", "w") as f:
+        os.makedirs("out", exist_ok=True)
+        with open("out/cadence.json", "w") as f:
             json.dump({"config": {"n": n, "p": p, "r": r, "boost": boost,
                                   "stale_margin":
                                       os.environ.get("CO_STALE_MARGIN")},
                        "rows": rows}, f, indent=1)
-    print("wrote docs/cadence_r05.json", flush=True)
+    print("wrote out/cadence.json", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """North-star metric: relative energy drift over 10k leapfrog steps
-(BASELINE.md: target <= 1e-6 on one TPU chip).
+(BASELINE.md: target <= 1e-6).
 
 The Hamiltonian is measured on host in float64 (ops/energy.py
 total_energy_f64): an f32 accumulator's own noise (~1e-7 scale) cannot
@@ -10,12 +10,13 @@ Usage: python scripts/energy_drift.py [n] [steps] [engine] [p] [r] [dt]
        python scripts/energy_drift.py sweep          # config sweep
 """
 
+import os
 import sys
 import time
 
 sys.path.insert(0, ".")
 
-from coulomb_oscillators_tpu.utils.cache import enable_compile_cache
+from coulomb_oscillators.utils.cache import enable_compile_cache
 enable_compile_cache()
 
 import numpy as np
@@ -25,11 +26,11 @@ import jax.numpy as jnp
 
 def run_one(n, steps, engine, p_order, radius, dt=5e-4, block=1000,
             integrator="leapfrog", quiet=False, **config_kw):
-    from coulomb_oscillators_tpu import SimConfig, ParticleState
-    from coulomb_oscillators_tpu.models import init_dist as ID
-    from coulomb_oscillators_tpu.models import oscillator as M
-    from coulomb_oscillators_tpu.ops import energy as E
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators import SimConfig, ParticleState
+    from coulomb_oscillators.models import init_dist as ID
+    from coulomb_oscillators.models import oscillator as M
+    from coulomb_oscillators.ops import energy as E
+    from coulomb_oscillators.simulate import Simulator
 
     config = SimConfig(fmm_order=p_order, tree_radius=radius, dt=dt,
                        integrator=integrator, **config_kw)
@@ -99,16 +100,16 @@ def sweep(steps=10_000):
         run_one(n, steps, engine, p, r, dt, integrator=integ, quiet=True)
 
 
-def emit_artifact(path="ENERGY_r04.json", steps=10_000):
+def emit_artifact(path="out/energy.json", steps=10_000):
     """Driver-checkable north-star artifact: N=30001, p=6, r=2.5, dt=2e-5,
     leapfrog, f64-certified Hamiltonian.
 
     The config carries accuracy=1e-6, which makes the kd engine stiffen its
     sub-leaf MAC automatically (boost 2.0 — the block-granularity error
     plateau; the throughput-tuned 1.5 default costs ~4% more force error,
-    which the round-3 artifact showed regressing the drift to 2.5e-6).  If
-    the bound still fails, fall back to the round-2 geometry outright
-    (sub-leaf MAC off via mac_sub_boost pinned huge == block granularity)."""
+    enough to push the drift past 1e-6).  If the bound still fails, fall
+    back to block-granularity geometry outright (sub-leaf MAC off via
+    mac_sub_boost pinned huge)."""
     import json
     n, p, r, dt = 30001, 6, 2.5, 2e-5
     ladder = [
@@ -136,18 +137,17 @@ def emit_artifact(path="ENERGY_r04.json", steps=10_000):
                 "(see README drift ladder)",
         "psteps_per_s": psteps * 1e6,
     }
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
 
 
-def midscale(path="ENERGY_MIDSCALE.json", steps=2000):
-    """Mid-scale on-TPU regression twin of the north star (VERDICT r3
-    item 2): n=16384 at the REAL rebuild cadence (tree_steps=8 -> 250
-    rebuilds over 2000 steps) and realistic leaf geometry, unlike the CPU
-    CI twin (n=2048, tree_steps=64) that passed while the round-3 artifact
-    regressed 60x.  Runs in minutes on the chip; the bound is the full
-    north-star 1e-6 (round-2-grade engines sit near 4e-8 here)."""
+def midscale(path="out/energy_midscale.json", steps=2000):
+    """Mid-scale regression twin of the north star: n=16384 at the REAL
+    rebuild cadence (tree_steps=8 -> 250 rebuilds over 2000 steps) and
+    realistic leaf geometry, unlike the CPU CI twin (n=2048,
+    tree_steps=64).  The bound is the full north-star 1e-6."""
     import json
     n, p, r, dt = 16384, 6, 2.5, 2e-5
     drift, max_drift, psteps = run_one(n, steps, "fmm3_kd", p, r, dt,
@@ -162,6 +162,7 @@ def midscale(path="ENERGY_MIDSCALE.json", steps=2000):
                    "integrator": "leapfrog"},
         "psteps_per_s": psteps * 1e6,
     }
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))

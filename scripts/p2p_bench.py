@@ -1,92 +1,100 @@
-"""Near-field (P2P) kernel shootout at scale: jnp scan (diff form) vs
-MXU-assembled form vs the Pallas VMEM-resident kernel.
+"""Near field on the GPU: the P2P kernel against the jnp scan, at the
+shipped N=1M kd-FMM configuration (the shapes of chip_smoke.py phase 2).
 
-Decides the default near-field path (VERDICT item 5).  Prints per-variant
-time, lane-interaction rate, and max deviation vs the diff form.
+    python scripts/p2p_bench.py        # isolated near-field pass: agreement
+                                       # and ms per eval, kernel at several
+                                       # warp counts
+    python scripts/p2p_bench.py e2e    # end to end: Simulator windows with
+                                       # the kernel and with the scan, in
+                                       # turns (kernel, scan, scan, kernel)
 
-Run from /root/repo: python scripts/p2p_bench.py [N] [p] [r]
+Needs a GPU.  Every time is printed with the card's name and power limit.
 """
 
+import gc
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from coulomb_oscillators_tpu.utils.cache import enable_compile_cache
-enable_compile_cache()
+import chip_smoke as cs  # noqa: E402
 
-import numpy as np
-import jax
-import jax.numpy as jnp
 
-from coulomb_oscillators_tpu import SimConfig
-from coulomb_oscillators_tpu.models import init_dist as ID
-from coulomb_oscillators_tpu.ops.fmm import KdFmmEngine
-from coulomb_oscillators_tpu.utils.timing import test_time_chained
+def _setup(n):
+    import jax.numpy as jnp
+    from coulomb_oscillators import ParticleState, SimConfig
+    from coulomb_oscillators.simulate import Simulator
+
+    config = SimConfig(**cs.KD)
+    pos, vel = cs.beam(n)
+    sim = Simulator(config, n, engine="fmm3_kd")
+    return sim, ParticleState(jnp.asarray(pos), jnp.asarray(vel),
+                              jnp.zeros((n, 3), jnp.float32))
+
+
+def isolated(card, n):
+    import functools
+    import jax
+    import jax.numpy as jnp
+    from coulomb_oscillators.ops.fmm.p2p_triton import p2p_near
+
+    sim, state = _setup(n)
+    sim.init_acc(state)
+    eng, fs = sim._fmm, sim._fstate
+    ppad = sim._padded.pos
+    ref = jax.block_until_ready(jax.jit(eng._p2p_scan)(ppad, fs))
+    scale = float(jnp.max(jnp.linalg.norm(ref, axis=-1)))
+    pairs = int(fs.p2p_row_ptr[-1]) * eng.st.C * eng.C_blk
+    t = cs._time_call(jax.jit(eng._p2p_scan), ppad, fs)
+    print(f"scan: {t * 1e3:.3f} ms/eval, {pairs / t / 1e9:.1f} G pair "
+          f"evals/s [{card}]", flush=True)
+    for warps in (4, 8, 16):
+        fn = jax.jit(functools.partial(
+            p2p_near, nsub=1 << eng.sub_depth, eps2=float(eng.config.eps2),
+            mask_shift=eng.mask_shift, num_warps=warps))
+        got = jax.block_until_ready(fn(ppad, fs.p2p_row_ptr, fs.p2p_src))
+        dev = float(jnp.max(jnp.linalg.norm(got - ref, axis=-1))) / scale
+        t = cs._time_call(fn, ppad, fs.p2p_row_ptr, fs.p2p_src)
+        print(f"kernel num_warps={warps}: {t * 1e3:.3f} ms/eval, "
+              f"{pairs / t / 1e9:.1f} G pair evals/s, max|d|/max|ref| "
+              f"{dev:.2e} [{card}]", flush=True)
+        assert dev < cs.TOL_NEAR, dev
+
+
+def e2e(card, n, windows=3):
+    import jax
+
+    for use_kernel in (True, False, False, True):
+        sim, state = _setup(n)
+        sim._fmm.use_pallas = use_kernel     # read when the scan traces
+        ts = sim.config.tree_steps
+        state = sim.init_acc(state)
+        jax.block_until_ready(sim.run(state, ts).pos)
+        jax.block_until_ready(sim.advance_padded(ts))   # prime the rebuilds
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            jax.block_until_ready(sim.advance_padded(ts))
+        dt = time.perf_counter() - t0
+        print(f"e2e {'kernel' if use_kernel else 'scan'}: {windows} x {ts} "
+              f"steps in {dt:.3f} s = {windows * ts * n / dt:.1f} "
+              f"particle-steps/s [{card}]", flush=True)
+        del sim, state
+        gc.collect()
 
 
 def main():
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 1_000_000
-    p = int(sys.argv[2]) if len(sys.argv) > 2 else 4
-    r = float(sys.argv[3]) if len(sys.argv) > 3 else 2.0
-    cfg = SimConfig(fmm_order=p, tree_radius=r)
-    x0 = (0.003, 0.001, 0.01)
-    u0 = tuple(w * xs for w, xs in zip(cfg.omega0, x0))
-    pos_h, _ = ID.init_gaussian(n, x0, u0)
-    pos = jnp.asarray(pos_h)
-
-    variants = {
-        "diff": dict(use_pallas=False),
-        "pallas": dict(use_pallas=True),
-        "stream": dict(use_pallas=True, streaming=True),
-    }
-    results = {}
-    ref_unpad = None
-    for name, kw in variants.items():
-        kw = dict(kw)
-        streaming = kw.pop("streaming", False)
-        eng = KdFmmEngine(cfg, n, **kw)
-        if streaming:
-            eng.p2p_streaming = True
-        fs = eng.build(pos)
-        st = eng.st
-        G, C, dim = 1 << eng.L, st.C, eng.dim
-        pad_mask = jnp.asarray(st.pad_mask)
-        pos_s = jnp.take(pos, fs.perm, axis=0)
-        flat = jnp.where(pad_mask[:, None],
-                         jnp.take(pos_s, jnp.asarray(st.pad_gather), axis=0),
-                         jnp.float32(1e18))
-        ppad0 = flat.reshape(G, C, dim)
-
-        @jax.jit
-        def p2p(ppad, eng=eng, fs=fs):
-            f = eng._stage_p2p(ppad, fs)
-            return ppad + f * 1e-30, f
-
-        def chained(x, p2p=p2p):
-            return p2p(x)[0]
-
-        t = test_time_chained(chained, ppad0, min_loop=3.0)
-        q = int(np.sum(np.asarray(fs.p2p_valid)))
-        gint = q * C * C / t / 1e9
-        # unpadded acceleration for cross-variant comparison
-        f = p2p(ppad0)[1]
-        acc = np.asarray(
-            jnp.take(f.reshape(G * C, dim), jnp.asarray(st.unpad_gather),
-                     axis=0)[jnp.argsort(fs.perm)] if False else
-            jnp.take(jnp.take(f.reshape(G * C, dim),
-                              jnp.asarray(st.unpad_gather), axis=0),
-                     fs.inv_perm, axis=0))
-        if ref_unpad is None:
-            ref_unpad = acc
-            dev = 0.0
-        else:
-            scale = np.abs(ref_unpad).max()
-            dev = float(np.abs(acc - ref_unpad).max() / scale)
-        results[name] = (t, gint, dev, q, C)
-        print(f"{name:7s}: {t * 1e3:8.2f} ms  {gint:7.1f} G lane-int/s  "
-              f"C={C} pairs={q}  max_dev={dev:.2e}", flush=True)
-        assert dev < 1e-5, f"{name} disagrees with diff form: {dev}"
+    import jax
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("p2p_bench: needs a GPU")
+    from coulomb_oscillators.utils.cache import enable_compile_cache
+    enable_compile_cache()
+    card = cs.card_info()[0]
+    n = 1_000_000
+    if sys.argv[1:] == ["e2e"]:
+        e2e(card, n)
+    else:
+        isolated(card, n)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Snapshot viewer: renders `out<iter>_<dt>.bin` files to PNG frames.
 
-Closes the reference's L6 layer (Graphics/main.cpp) TPU-side: instead of an
+Closes the reference's L6 layer (Graphics/main.cpp): instead of an
 OpenGL window + FreeImage BMP dump, this renders the same frames headlessly
 to PNGs (no GPU, no extra deps — PNG via zlib).
 
@@ -55,7 +55,7 @@ def write_png(path: str, rgb: np.ndarray) -> None:
 # full printable-ASCII 5x7 text engine — the headless equivalent of the
 # reference's FreeType atlas + Text quads (Graphics/Font.hpp:40-358)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from coulomb_oscillators_tpu.utils.font import draw_text  # noqa: E402
+from coulomb_oscillators.utils.font import draw_text  # noqa: E402
 
 
 def render_frame(pos: np.ndarray, scale: float = REF_SCALE,

@@ -5,8 +5,8 @@ by the engine tests."""
 import numpy as np
 import pytest
 
-from coulomb_oscillators_tpu import cli
-from coulomb_oscillators_tpu.utils import io as cio
+from coulomb_oscillators import cli
+from coulomb_oscillators.utils import io as cio
 
 
 def test_simulate_snapshot_resume_roundtrip(tmp_path, capsys):

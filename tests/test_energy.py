@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from coulomb_oscillators_tpu.ops import energy as E
+from coulomb_oscillators.ops import energy as E
 
 ARGS = (1e-18, 2e-6 / 1000, (1.2, 1.0, 1.0))
 
@@ -70,11 +70,11 @@ def test_accuracy_grade_config_stiffens_mac():
     auto-level geometry the accuracy-grade config (accuracy < 1e-4) must
     auto-select the plateau-exact boost and beat the throughput config's
     force error.  Runs in seconds — per-commit, unlike the drift twin."""
-    from coulomb_oscillators_tpu import SimConfig
-    from coulomb_oscillators_tpu.models import init_dist as ID
-    from coulomb_oscillators_tpu.ops import direct as D
-    from coulomb_oscillators_tpu.ops.fmm import KdFmmEngine
-    from coulomb_oscillators_tpu.ops.reductions import mean_rel_err
+    from coulomb_oscillators import SimConfig
+    from coulomb_oscillators.models import init_dist as ID
+    from coulomb_oscillators.ops import direct as D
+    from coulomb_oscillators.ops.fmm import KdFmmEngine
+    from coulomb_oscillators.ops.reductions import mean_rel_err
 
     n = 8192
     base = SimConfig(fmm_order=6, tree_radius=2.5)
@@ -104,10 +104,10 @@ def test_energy_drift_regression_resolved_dt():
     """North-star regression (VERDICT r2 item 7): at an encounter-resolving
     dt the certified drift must stay tiny.  CI-scale twin of the
     ENERGY_r03.json artifact config (N=30001, dt=2e-5, 10k steps)."""
-    from coulomb_oscillators_tpu import SimConfig, ParticleState
-    from coulomb_oscillators_tpu.models import init_dist as ID
-    from coulomb_oscillators_tpu.ops import energy as E
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators import SimConfig, ParticleState
+    from coulomb_oscillators.models import init_dist as ID
+    from coulomb_oscillators.ops import energy as E
+    from coulomb_oscillators.simulate import Simulator
 
     n, steps, dt = 2048, 1000, 2e-5
     # tree_steps=64: at this dt the per-window motion is tiny, and CI on

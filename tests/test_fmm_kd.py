@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from coulomb_oscillators_tpu import SimConfig, ParticleState
-from coulomb_oscillators_tpu.models import init_dist as ID
-from coulomb_oscillators_tpu.ops import direct as D
-from coulomb_oscillators_tpu.ops.fmm.kdtree import KdFmmEngine, auto_level
-from coulomb_oscillators_tpu.ops.reductions import mean_rel_err
+from coulomb_oscillators import SimConfig, ParticleState
+from coulomb_oscillators.models import init_dist as ID
+from coulomb_oscillators.ops import direct as D
+from coulomb_oscillators.ops.fmm.kdtree import KdFmmEngine, auto_level
+from coulomb_oscillators.ops.reductions import mean_rel_err
 
 N = 1500
 
@@ -89,8 +89,8 @@ def test_auto_level():
 
 
 def test_simulator_fmm_energy(beam):
-    from coulomb_oscillators_tpu.models import oscillator as M
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators.models import oscillator as M
+    from coulomb_oscillators.simulate import Simulator
 
     pos, vel = beam
     config = SimConfig(fmm_order=4, tree_radius=2.0, dt=5e-4)
@@ -109,7 +109,7 @@ def test_async_repad_matches_sync_rebuild(beam):
     must track the synchronous-rebuild trajectory across several rebuild
     windows.  Trees differ by one window of staleness, so forces differ at
     the MAC-error level — positions stay equal to ~f32 scale."""
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators.simulate import Simulator
 
     pos, vel = beam
     traj = {}
@@ -131,7 +131,7 @@ def test_pipelined_adoption_depth2_matches_sync(beam):
     position snapshot — the transport-robust production mode) must stay on
     the sync trajectory to staleness-level accuracy and remain
     deterministic."""
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators.simulate import Simulator
 
     pos, vel = beam
     traj = {}
@@ -207,7 +207,7 @@ def test_production_cadence_window_error(beam):
     geometry refresh must keep the window-mean force error within 2x of
     the fresh-tree error, and the frozen-geometry cadence must not
     silently become the shipped default again."""
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators.simulate import Simulator
 
     pos, vel = beam
 
@@ -241,9 +241,9 @@ def test_stale_margin_auto_and_accuracy(beam, config):
     """Temporal MAC slack (config.stale_margin): the Simulator auto-derives
     a positive margin from max|v|*dt*max_list_age; margin-inflated bounds
     only make the MAC stricter, so the fresh-tree force error must not
-    degrade.  (The staleness-reduction physics is certified on hardware:
-    docs/stale_margin_r05.json.)"""
-    from coulomb_oscillators_tpu.simulate import Simulator
+    degrade.  (The staleness-reduction physics is checked on the card by
+    chip_smoke.py: oracle error at a window's end.)"""
+    from coulomb_oscillators.simulate import Simulator
 
     pos, vel = beam
     ref = D.direct_kahan(pos, config.eps2, config.kappa(N))
@@ -267,3 +267,17 @@ def test_stale_margin_auto_and_accuracy(beam, config):
     errm = float(mean_rel_err(engm.force(pos, engm.build(pos)), ref))
     # stricter acceptance => error at worst unchanged (f32 noise allowance)
     assert errm <= err0 * 1.25 + 1e-5, (errm, err0)
+
+
+@pytest.mark.parametrize("K,D,age", [(1, 1, 2), (1, 2, 3), (2, 1, 2),
+                                     (2, 2, 4), (3, 2, 3)])
+def test_list_age_windows(K, D, age):
+    """Oldest pair lists in use at a window's end, by the async cadence:
+    full re-sorts every K boundaries adopted D boundaries late, with
+    refreshes between unless a full adoption lands at the same boundary
+    (K=2, D=2 has none, so lists reach 4 windows)."""
+    from coulomb_oscillators.simulate import list_age_windows
+    cfg = SimConfig(tree_resort_every=K, tree_pipeline=D)
+    assert list_age_windows(cfg) == age
+    assert list_age_windows(cfg.replace(tree_async=False)) == 1
+    assert list_age_windows(cfg, mesh=True) == 2

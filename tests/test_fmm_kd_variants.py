@@ -9,11 +9,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from coulomb_oscillators_tpu import SimConfig
-from coulomb_oscillators_tpu.ops import direct as D
-from coulomb_oscillators_tpu.ops.fmm import KdFmmEngine, make_engine_object
-from coulomb_oscillators_tpu.ops.reductions import mean_rel_err
-from coulomb_oscillators_tpu.models import init_dist as ID
+from coulomb_oscillators import SimConfig
+from coulomb_oscillators.ops import direct as D
+from coulomb_oscillators.ops.fmm import KdFmmEngine, make_engine_object
+from coulomb_oscillators.ops.reductions import mean_rel_err
+from coulomb_oscillators.models import init_dist as ID
 
 N = 3000
 

@@ -10,12 +10,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from coulomb_oscillators_tpu import SimConfig, ParticleState
-from coulomb_oscillators_tpu.models import init_dist as ID
-from coulomb_oscillators_tpu.ops.fmm import KdFmmEngine
-from coulomb_oscillators_tpu.ops.fmm.kdtree import FAR
-from coulomb_oscillators_tpu.parallel import mesh as PM
-from coulomb_oscillators_tpu.parallel.fmm_pshard import (
+from coulomb_oscillators import SimConfig, ParticleState
+from coulomb_oscillators.models import init_dist as ID
+from coulomb_oscillators.ops.fmm import KdFmmEngine
+from coulomb_oscillators.ops.fmm.kdtree import FAR
+from coulomb_oscillators.parallel import mesh as PM
+from coulomb_oscillators.parallel.fmm_pshard import (
     PShardedKdFmm, make_psharded_step, shard_pair_lists)
 
 
@@ -83,7 +83,7 @@ def test_full_step_matches_padded_sim(setup):
     out = step_fn(pstate, fs, lists, hops)
 
     # single-device reference: one leapfrog step through the Simulator
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators.simulate import Simulator
     sim = Simulator(config, n, engine="fmm3_kd")
     st = sim.init_acc(ParticleState(pos_j, vel_j, jnp.zeros_like(pos_j)))
     ref = sim.run(st, 1)
@@ -99,7 +99,7 @@ def test_simulator_mesh_mode_async_matches_single_device(setup):
     """Mesh mode with the ASYNC rebuild pipeline crosses TWO rebuild
     windows and stays on the single-device (equally async) trajectory —
     both paths adopt the same one-window-stale trees."""
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators.simulate import Simulator
     config, n, pos, vel, eng, fs = setup
     cfg = config.replace(tree_steps=3, tree_async=True)
     mesh = PM.make_mesh(8)
@@ -123,7 +123,7 @@ def test_simulator_mesh_mode_async_matches_single_device(setup):
 def test_simulator_mesh_mode_matches_single_device(setup):
     """Simulator(mesh=...) runs the padded scan particle-sharded, crossing
     a rebuild boundary, and stays on the single-device trajectory."""
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators.simulate import Simulator
     config, n, pos, vel, eng, fs = setup
     cfg = config.replace(tree_steps=4, tree_async=False)
     mesh = PM.make_mesh(8)
@@ -153,7 +153,7 @@ def test_simulator_mesh_mode_matches_single_device(setup):
 def test_device_async_builder_trajectory(setup):
     """tree_async_build='device' (on-chip Morton rebuild) stays on the
     sync-rebuild trajectory to force-error tolerance across a rebuild."""
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators.simulate import Simulator
     config, n, pos, vel, eng, fs = setup
     pos_j, vel_j = jnp.asarray(pos), jnp.asarray(vel)
     steps = 6
@@ -175,7 +175,7 @@ def test_device_async_builder_trajectory(setup):
 @pytest.mark.slow
 def test_cli_chips_flag(tmp_path):
     """CLI -chips N drives the particle-sharded simulator end-to-end."""
-    from coulomb_oscillators_tpu import cli
+    from coulomb_oscillators import cli
     out = tmp_path / "out"
     rc = cli.main(["-n", "1024", "-iters", "8", "-steps", "4",
                    "-chips", "8", "-engine", "fmm3_kd", "-o", str(out)])

@@ -5,12 +5,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from coulomb_oscillators_tpu import SimConfig
-from coulomb_oscillators_tpu.models import init_dist as ID
-from coulomb_oscillators_tpu.ops.fmm.kdtree import KdFmmEngine
-from coulomb_oscillators_tpu.ops.reductions import mean_rel_err
-from coulomb_oscillators_tpu.parallel import mesh as PM
-from coulomb_oscillators_tpu.parallel.fmm_shard import make_sharded_force
+from coulomb_oscillators import SimConfig
+from coulomb_oscillators.models import init_dist as ID
+from coulomb_oscillators.ops.fmm.kdtree import KdFmmEngine
+from coulomb_oscillators.ops.reductions import mean_rel_err
+from coulomb_oscillators.parallel import mesh as PM
+from coulomb_oscillators.parallel.fmm_shard import make_sharded_force
 
 
 def test_sharded_force_matches_single_device():

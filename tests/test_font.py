@@ -8,7 +8,7 @@ with, so the font swap cannot silently change existing output.
 import numpy as np
 import pytest
 
-from coulomb_oscillators_tpu.utils import font
+from coulomb_oscillators.utils import font
 
 
 # row-major 5-bit rows, MSB = leftmost column (the pre-round-4 viewer table)

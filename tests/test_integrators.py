@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from coulomb_oscillators_tpu.models import integrators as I
-from coulomb_oscillators_tpu.state import ParticleState
+from coulomb_oscillators.models import integrators as I
+from coulomb_oscillators.state import ParticleState
 
 OMEGA2 = (1.095**2, 1.0, 1.0)
 

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from coulomb_oscillators_tpu.models import init_dist as ID
-from coulomb_oscillators_tpu.utils import io as SIO
+from coulomb_oscillators.models import init_dist as ID
+from coulomb_oscillators.utils import io as SIO
 
 
 def test_roundtrip_3d_f32(tmp_path, rng):

@@ -13,8 +13,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from coulomb_oscillators_tpu.ops.multipole import operators as op
-from coulomb_oscillators_tpu.ops.multipole.tables import build_tables
+from coulomb_oscillators.ops.multipole import operators as op
+from coulomb_oscillators.ops.multipole.tables import build_tables
 
 @pytest.fixture(autouse=True)
 def _x64():

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from coulomb_oscillators_tpu import SimConfig
-from coulomb_oscillators_tpu.ops import direct as D
-from coulomb_oscillators_tpu.ops.fmm.octree import OctreeFmmEngine
-from coulomb_oscillators_tpu.ops.reductions import mean_rel_err
-from coulomb_oscillators_tpu.models import init_dist as ID
+from coulomb_oscillators import SimConfig
+from coulomb_oscillators.ops import direct as D
+from coulomb_oscillators.ops.fmm.octree import OctreeFmmEngine
+from coulomb_oscillators.ops.reductions import mean_rel_err
+from coulomb_oscillators.models import init_dist as ID
 
 N = 2000
 
@@ -38,8 +38,8 @@ def test_octree_converges(dim, L):
 @pytest.mark.parametrize("dim", [3, 2])
 def test_appel_monopole_tree(dim):
     """Dedicated Appel engine (appel.cuh): COC monopole far field."""
-    from coulomb_oscillators_tpu.ops.fmm import make_engine_object
-    from coulomb_oscillators_tpu.ops.fmm.appel import AppelEngine
+    from coulomb_oscillators.ops.fmm import make_engine_object
+    from coulomb_oscillators.ops.fmm.appel import AppelEngine
     omega = (1.095, 1.0, 1.0)[:dim]
     cfg = SimConfig(dim=dim, omega0=omega)
     eng = make_engine_object(cfg, N, "appel")
@@ -57,7 +57,7 @@ def test_appel_error_scale_invariant_in_depth():
     """The uniform-grid stencil is self-similar: the monopole far-field
     error is set by the stencil opening ratio, not the level — deeper trees
     must not degrade accuracy (they only shrink the near field)."""
-    from coulomb_oscillators_tpu.ops.fmm.appel import AppelEngine
+    from coulomb_oscillators.ops.fmm.appel import AppelEngine
     cfg = SimConfig()
     pos = _uniform(3)
     ref = D.direct_kahan(pos, cfg.eps2, cfg.kappa(N))
@@ -74,7 +74,7 @@ def test_radius_knob_improves_accuracy():
     """-r 2 must be measurably more accurate than r=1 on the uniform-grid
     engines (the reference's tree_radius knob, appel.cuh:260-381: a wider
     near neighbourhood halves the worst-case M2L opening ratio)."""
-    from coulomb_oscillators_tpu.ops.fmm.appel import AppelEngine
+    from coulomb_oscillators.ops.fmm.appel import AppelEngine
     cfg = SimConfig()
     pos = _uniform(3)
     ref = D.direct_kahan(pos, cfg.eps2, cfg.kappa(N))
@@ -98,7 +98,7 @@ def test_radius_any_integer():
     matching the reference's arbitrary integer -radius (appel.cuh:260-381
     loops over any half-width).  2D keeps it fast: the M2L stencil-class
     count grows as (4R+3)^dim - (2R+1)^dim."""
-    from coulomb_oscillators_tpu.ops.fmm.appel import AppelEngine
+    from coulomb_oscillators.ops.fmm.appel import AppelEngine
     cfg = SimConfig(dim=2, omega0=(1.095, 1.0))
     pos = _uniform(2)
     ref = D.direct_kahan(pos, cfg.eps2, cfg.kappa(N))
@@ -119,7 +119,7 @@ def test_radius_any_integer():
 
 
 def test_octree_engine_registry():
-    from coulomb_oscillators_tpu.ops.fmm import make_engine_object
+    from coulomb_oscillators.ops.fmm import make_engine_object
     cfg = SimConfig()
     for name in ("fmm3", "fmm3_traceless"):
         assert isinstance(make_engine_object(cfg, N, name), OctreeFmmEngine)

@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from coulomb_oscillators_tpu import SimConfig, ParticleState
-from coulomb_oscillators_tpu.models import init_dist as ID
-from coulomb_oscillators_tpu.models import integrators as I
-from coulomb_oscillators_tpu.models import oscillator as M
+from coulomb_oscillators import SimConfig, ParticleState
+from coulomb_oscillators.models import init_dist as ID
+from coulomb_oscillators.models import integrators as I
+from coulomb_oscillators.models import oscillator as M
 
 
 def _make_state(config, n):
@@ -39,7 +39,7 @@ def test_engines_agree():
     f_fast = M.make_oscillator_force(config, n, "direct")
     f_ref = M.make_oscillator_force(config, n, "direct_ref")
     a1, a2 = f_fast(state.pos), f_ref(state.pos)
-    from coulomb_oscillators_tpu.ops.reductions import mean_rel_err
+    from coulomb_oscillators.ops.reductions import mean_rel_err
     assert float(mean_rel_err(a1, a2)) < 1e-5
 
 
@@ -60,7 +60,7 @@ def test_trap_only_oscillation_period():
 
 
 def test_simulator_plain_engine():
-    from coulomb_oscillators_tpu.simulate import Simulator
+    from coulomb_oscillators.simulate import Simulator
     config = SimConfig(dt=1e-3)
     n = 128
     state = _make_state(config, n)

@@ -10,10 +10,10 @@ identical packed near lists.
 import numpy as np
 import pytest
 
-from coulomb_oscillators_tpu import SimConfig
-from coulomb_oscillators_tpu.models import init_dist as ID
-from coulomb_oscillators_tpu.ops.fmm.kdtree import KdFmmEngine, _traverse_raw
-from coulomb_oscillators_tpu import native as conative
+from coulomb_oscillators import SimConfig
+from coulomb_oscillators.models import init_dist as ID
+from coulomb_oscillators.ops.fmm.kdtree import KdFmmEngine, _traverse_raw
+from coulomb_oscillators import native as conative
 
 
 @pytest.mark.parametrize("radius,p", [(2.0, 5), (1.43, 3)])

@@ -18,7 +18,7 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 
 import view  # noqa: E402
-from coulomb_oscillators_tpu.utils import io as cio  # noqa: E402
+from coulomb_oscillators.utils import io as cio  # noqa: E402
 
 
 def test_read_snapshot_infers_n_like_viewer(tmp_path):
